@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""CRC demo: the generic host CRC, the batched TPU engine, and the
+"""CRC demo: the generic host CRC, the batched device engine, and the
 append/check pair with endianness/skip options.
 
 Mirrors the reference examples crc.cpp / crc_check.cpp /

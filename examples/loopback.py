@@ -18,7 +18,7 @@ from gr4_packet_modem_tpu.models.receiver import Receiver, RxConfig
 from gr4_packet_modem_tpu.models.transmitter import Transmitter, TxConfig
 from gr4_packet_modem_tpu.utils.ragged import PacketBatch, ragged_concat
 
-payloads = [np.frombuffer(s, np.uint8) for s in (b"hello", b"tpu packet modem")]
+payloads = [np.frombuffer(s, np.uint8) for s in (b"hello", b"jax packet modem")]
 
 tx = Transmitter(TxConfig(max_payload_len=64))
 batch = PacketBatch.from_list(payloads, max_len=64)

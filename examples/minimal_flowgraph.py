@@ -26,7 +26,7 @@ vector_source = registry.resolve("VectorSource")  # PacketBatch.from_list
 scramble = registry.resolve("AdditiveScrambler").scramble_bits
 
 batch = vector_source([np.frombuffer(b"hello gr4", np.uint8),
-                       np.frombuffer(b"tpu modem", np.uint8)])
+                       np.frombuffer(b"jax modem", np.uint8)])
 bits = bytes_to_bits(jnp.asarray(batch.data))
 once = scramble(bits)
 twice = scramble(once)  # the CCSDS additive scrambler is an involution

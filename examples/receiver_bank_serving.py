@@ -5,9 +5,9 @@ continuous traffic with rate monitoring.
 Combines the pieces a production deployment uses: `ReceiverBank` (channels x
 time sharded over the device mesh with ppermute halos), per-step rate
 reporting (`ProbeRate`, probe_rate.hpp) and packet accounting — the
-TPU-native analogue of running N `packet_receiver` flowgraphs at once.
+batched analogue of running N `packet_receiver` flowgraphs at once.
 
-Run off-TPU with:
+Run on the CPU with:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 PM_PLATFORM=cpu \
       python examples/receiver_bank_serving.py
 """

@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Host-fed sharded serving: StreamingShardedBank on a (ch, time) mesh.
 
-The production serving path (round-5): the host streams `[C, n]` sample
+The production serving path: the host streams `[C, n]` sample
 blocks onto the device mesh — each device receives only its (ch, time)
-slice of the int8 wire, the block is reassembled over ICI, every device
+slice of the int8 wire, the block is reassembled on the mesh, every device
 decodes its own time shard with the in-packet suppression state chained
 across shards AND blocks, and results come back compacted to the accepted
 packets. Per-packet RX debug logging (`log=True`) mirrors the reference's
 `PayloadMetadataInsert{log:true}` (payload_metadata_insert.hpp:66).
 
-Run off-TPU with:
+Run on the CPU with:
   XLA_FLAGS=--xla_force_host_platform_device_count=8 PM_PLATFORM=cpu \
       python examples/sharded_serving.py
 """

@@ -5,7 +5,7 @@ Mirrors the reference's domain-converter examples
 (``examples/pdu_to_tagged_stream.cpp``, ``examples/tagged_stream_to_pdu.cpp``,
 ``examples/pdu_specialization.cpp``): GR4 carries packets either as
 ``packet_len``-tagged streams or as ``Pdu`` items, with converter blocks
-between the two. The TPU-native equivalents are explicit and batched:
+between the two. The equivalents here are explicit and batched:
 
 - the Pdu domain is :class:`PacketBatch` (dense ``[B, max_len]`` + lengths),
 - the tagged-stream domain is a flat item array plus an explicit lengths

@@ -1,4 +1,4 @@
-"""TPU-native packet modem framework.
+"""Packet modem framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 gr4-packet-modem reference (GNU Radio 4.0 packet QPSK modem): batched DSP

@@ -1,6 +1,6 @@
 """TUN device IO via the native helper library (ctypes).
 
-TPU-side equivalent of TunSource/TunSink (tun_source.hpp:15-153,
+Equivalent of TunSource/TunSink (tun_source.hpp:15-153,
 tun_sink.hpp:15-44): IP packets enter/leave the modem through a Linux TUN
 device, optionally inside a named network namespace (tun.hpp:28-57). The
 native library (native/tunio.cpp) provides the fd plumbing and a lock-free

@@ -1,6 +1,6 @@
 """Channel impairment models (vectorized).
 
-TPU equivalents of the reference channel blocks used by the transceiver app
+Vectorized equivalents of the reference channel blocks used by the transceiver app
 and the loopback QA (apps/packet_transceiver.cpp:71-78, qa_loopback.cpp):
 
 - ``rotate``: constant CFO (rotator.hpp) — closed-form phase ramp instead of a

@@ -1,4 +1,4 @@
-"""Batched TPU packet receiver.
+"""Batched packet receiver.
 
 Re-design of the reference RX composite ``PacketReceiver``
 (packet_receiver.hpp:28-267). The reference chains 15 per-item blocks with a
@@ -11,8 +11,8 @@ passes over a sample buffer (SURVEY.md §7 hard-part 3):
 2. **Header pass**: for every detection, extract the 192-symbol
    syncword+header region — coarse frequency derotation
    (coarse_frequency_correction.hpp) and polyphase matched filtering at the
-   acquisition-selected arm (symbol_filter.hpp) are fused into one gather +
-   window matmul — wipe off the syncword (syncword_wipeoff.hpp), run the
+   acquisition-selected arm (symbol_filter.hpp) run on one batched region
+   slice per detection — wipe off the syncword (syncword_wipeoff.hpp), run the
    Costas loop (PILOT 64 @ bw 0.02, QPSK 128 @ bw 0.01), demap LLRs,
    descramble, decode the (128,32) LDPC header and parse it
    (header_parser.hpp).
@@ -41,14 +41,13 @@ import numpy as np
 
 from ..ops import ldpc
 from ..ops.acquire import AcquisitionConfig, Detections, SyncwordAcquirer
-from ..ops.costas import costas_run, costas_segments
-from ..ops.costas_pallas import costas_enabled, costas_track_pallas
-from ..ops.fetch_pallas import fetch_enabled, fetch_regions
-from ..ops.matched_pallas import matched_enabled, matched_filter_pallas, max_taps
+from ..ops.costas_gpu import costas_track
 from ..ops.crc import make_crc32_engine
+from ..ops.matched import matched_filter
 from ..ops.packing import pack_bits
 from ..ops.scramble import keystream
 from ..utils import constants as C
+from ..utils.cplx import slice_windows
 from ..utils.firdes import rx_pfb_taps, rx_rrc_taps
 
 __all__ = [
@@ -134,31 +133,33 @@ class RxConfig:
     max_detections: int = 64
     freq_bins: int = 4
     power_threshold: float = C.SYNC_POWER_THRESHOLD
-    # "auto" = fused Pallas correlator on TPU, reference fft elsewhere
-    # (see AcquisitionConfig.backend for all values)
+    # "auto" = the overlap-save "fft" correlator (see
+    # AcquisitionConfig.backend for all values)
     acquisition_backend: str = "auto"
     # overlap-save FFT size for the fft backend (syncword_detection.hpp uses
     # 2048; larger sizes trade fewer/bigger FFTs against overlap waste
-    # (sync_len-1)/fft_size — relevant knob on TPU, see docs/PERF_R2.md)
+    # (sync_len-1)/fft_size)
     acquisition_fft_size: int = C.SYNC_FFT_SIZE
     num_pfb_arms: int = 32
     ldpc_iterations: int = 25
     symbol_chunk: int = 2048          # symbol-extraction chunk size
-    # payload carrier tracking: "costas" = loop-exact per-symbol scan
-    # (reference behavior); "vv" = feed-forward block Viterbi&Viterbi
-    # estimator (scan-free, within-SNR equivalent, faster on TPU)
+    # payload carrier tracking: "costas" = loop-exact per-symbol Costas
+    # loop (reference behavior); "vv" = feed-forward block Viterbi&Viterbi
+    # estimator (no per-symbol recursion, within-SNR equivalent)
     payload_carrier: str = "costas"
     vv_block: int = 64                # V&V averaging block (symbols)
     # keep post-correction payload symbols in PayloadResult.symbols (for the
     # ZMQ monitoring taps, packet_receiver.hpp:159-189); off by default to
     # avoid the extra device->host traffic
     keep_payload_symbols: bool = False
-    # Pallas kernel backend for the sequential stages (Costas loop,
-    # ops/costas_pallas.py; LDPC BP decode, ops/ldpc_pallas.py): None = auto
-    # (Pallas VMEM-resident kernels on TPU, lax.scan elsewhere); True/False
-    # force. Both kernels are exact (bit-identical recursions), just without
-    # the per-iteration dispatch cost of the scans.
+    # Costas loop implementation (ops/costas_gpu.costas_track): None = the
+    # Pallas kernel when compiled for a CUDA GPU, the lax.scan elsewhere;
+    # True = the kernel (an error on a platform without one); False = the
+    # scan. Both run the same recursion.
     use_pallas: bool | None = None
+    # run the Pallas kernel in the Pallas interpreter, on any platform
+    # (tests on the CPU)
+    pallas_interpret: bool = False
 
     @property
     def max_payload_syms(self) -> int:
@@ -230,31 +231,15 @@ class Receiver:
         # per-arm taps [A, K]: arm j, tap k -> pfb[j + A*k]
         a = config.num_pfb_arms
         k = pfb.size // a
-        # numpy constant: embedded at trace time (device-array constants
-        # require a d2h copy at lowering, which is broken on this backend)
+        # numpy constant: embedded at trace time
         self._arm_taps = pfb.reshape(k, a).T.astype(np.float32).copy()  # [A, K]
         self.arm_len = k
         self._sync_bipolar = np.where(
             np.asarray(C.SYNCWORD) != 0, -1.0, 1.0
         ).astype(np.float32)
         self._llr_scale = np.float32(2.0 / C.LLR_NOISE_SIGMA**2)
-        self._decoder = ldpc.HeaderLdpcDecoder(
-            config.ldpc_iterations, use_pallas=config.use_pallas
-        )
+        self._decoder = ldpc.HeaderLdpcDecoder(config.ldpc_iterations)
         self._crc = make_crc32_engine(config.max_payload_len)
-        if config.use_pallas is not False and jax.default_backend() == "tpu":
-            # pre-warm every consulted kernel's capability probe EAGERLY:
-            # the step functions consult them at trace time, where a cold
-            # probe cannot run (ops/pallas_probe.py; the LDPC and fused-
-            # acquisition probes are warmed by their own constructors
-            # above). use_pallas=True still consults the fetch/matched
-            # probes (an explicitly forced costas/LDPC kernel does not),
-            # so warm on None AND True.
-            costas_enabled()
-            fetch_enabled()
-            if self.arm_len <= max_taps(sps):
-                matched_enabled(sps, self.arm_len)
-
 
     # -------------------------------------------------------------- front pad
 
@@ -282,25 +267,13 @@ class Receiver:
 
     def _carrier_track(self, syms, phase0, freq0, offset: int):
         """Loop-exact Costas tracking with the receiver's positional schedule
-        (PILOT 64 / QPSK-header 128 / QPSK-payload); dispatches to the Pallas
-        VMEM-resident kernel on TPU, the lax.scan elsewhere."""
+        (PILOT 64 / QPSK-header 128 / QPSK-payload); the implementation is
+        chosen per platform by ``costas_track``."""
         cfg = self.config
-        use_pallas = cfg.use_pallas
-        if use_pallas is None:
-            # auto: require the production-shape compile+validate probe
-            use_pallas = (
-                jax.default_backend() == "tpu" and costas_enabled()
-            )
-        if use_pallas:
-            # the gridded kernel handles any symbol count (SYM_BLOCK tiles
-            # with scratch-carried loop state) — no length cap
-            return costas_track_pallas(
-                syms, phase0, freq0, offset=offset,
-                # forced-on off-TPU (tests) runs the kernel interpreter
-                interpret=jax.default_backend() != "tpu",
-            )
-        const_ids, k1, k2 = costas_segments(syms.shape[-1], offset=offset)
-        return costas_run(syms, phase0, freq0, const_ids, k1, k2)
+        return costas_track(
+            syms, phase0, freq0, offset=offset, use_pallas=cfg.use_pallas,
+            interpret=cfg.pallas_interpret,
+        )
 
     # ---------------------------------------------------------- symbol timing
 
@@ -340,7 +313,7 @@ class Receiver:
         Output symbol s uses samples ``x[n_base + sps*(sym_offset+s) - k]``,
         k = 0..K-1, derotated by ``exp(-i freq (n - n0))``.
 
-        Lane-packed bank form: ``x`` may be ``[C, N]`` with ``chan`` int32
+        Bank form: ``x`` may be ``[C, N]`` with ``chan`` int32
         ``[D]`` giving each detection's channel — all channels' detections
         are then extracted in ONE batch (the slices address the flattened
         sample matrix; indices stay channel-local for the derotation).
@@ -348,14 +321,10 @@ class Receiver:
         cfg = self.config
         sps = cfg.samples_per_symbol
         kk = self.arm_len
-        # arm selection as a one-hot matmul (row gathers compile slowly on
-        # this backend; a [D,A]x[A,K] matmul is instant and MXU-friendly)
-        onehot = jax.nn.one_hot(arm, cfg.num_pfb_arms, dtype=jnp.float32)
-        arm_taps = onehot @ jnp.asarray(self._arm_taps)  # [D, K]
-        # the grouped conv never materializes window stacks, so extraction
-        # runs as one chunk up to ~16k symbols; longer extractions (the u16
-        # payload envelope reaches 262,156 symbols) are chunked to bound the
-        # [D, region] intermediates
+        arm_taps = jnp.asarray(self._arm_taps)[arm]  # [D, K] row gather
+        # extraction runs as one chunk up to ~16k symbols; longer extractions
+        # (the u16 payload envelope reaches 262,156 symbols) are chunked to
+        # bound the [D, region] intermediates
         if num_syms > 4 * cfg.symbol_chunk:
             chunk = cfg.symbol_chunk
             nchunks = -(-num_syms // chunk)
@@ -368,63 +337,22 @@ class Receiver:
         else:
             row_len = x.shape[0]
             xr, xi = x.real, x.imag
-        d = n_base.shape[0]
         region_len = sps * (chunk - 1) + kk
-
-        # reversed per-detection taps as a grouped-conv kernel shared by both
-        # I/Q planes: kernel[k, 0, g] with groups ordered [I x D, Q x D]
-        kern = jnp.tile(arm_taps[:, ::-1].T[:, None, :], (1, 1, 2))  # [K,1,2D]
-
-        use_pallas = cfg.use_pallas
-        if use_pallas is None:
-            use_pallas = jax.default_backend() == "tpu"
-        # DMA region fetch and depthwise matched filter gate independently
-        # (an oversized tap count must not disable the unrelated fetch
-        # kernel); each auto-enabled kernel requires its compile+validate
-        # probe on TPU, while forced-on off-TPU (tests) runs interpreted
-        use_fetch = use_pallas and (
-            fetch_enabled() or jax.default_backend() != "tpu"
-        )
-        use_matched = (
-            use_pallas
-            and kk <= max_taps(sps)
-            and (
-                matched_enabled(sps, kk)
-                or jax.default_backend() != "tpu"
-            )
-        )
+        taps_rev = arm_taps[:, ::-1]  # correlation form
 
         def one_chunk(c):
             start = n_base + sps * (sym_offset + c * chunk) - (kk - 1)  # [D]
             # clip within the (channel-local) row, then address the flat
-            # sample matrix; the padded fetch tail may read into the next
-            # channel's row but only within the discarded [region_len, rpad)
+            # sample matrix
             start_c = jnp.clip(start, 0, row_len - region_len)
             fetch_start = (
                 start_c if chan is None else start_c + chan * row_len
             )
-            if use_fetch:
-                # scalar-prefetch DMA fetch (ops/fetch_pallas.py): one
-                # vector->scalar readback for the whole start array instead
-                # of one stall per slice
-                rr, ri = fetch_regions(
-                    xr, xi, fetch_start, region_len,
-                    interpret=jax.default_backend() != "tpu",
-                )
-            else:
-                # per-detection contiguous regions via vmapped dynamic
-                # slices: XLA lowers these to row-slice DMAs. (A 2-D
-                # index-matrix gather of the same windows runs ~20x slower
-                # on this backend — it serializes element-wise.)
-                rr = jax.vmap(
-                    lambda s: jax.lax.dynamic_slice(xr, (s,), (region_len,))
-                )(fetch_start)  # [D, region_len]
-                ri = jax.vmap(
-                    lambda s: jax.lax.dynamic_slice(xi, (s,), (region_len,))
-                )(fetch_start)
+            # per-detection contiguous regions, one batched slice per plane
+            rr = slice_windows(xr, fetch_start, region_len)  # [D, region]
+            ri = slice_windows(xi, fetch_start, region_len)
             start = start_c
-            # derotate the region by exp(-i freq (n - n0)) (cos/sin over
-            # [D, R] measured free on the VPU — docs/PERF_R3.md round-3b)
+            # derotate the region by exp(-i freq (n - n0))
             j = jnp.arange(region_len, dtype=jnp.int32)[None, :]
             ph = -freq[:, None] * (start[:, None] + j - n0[:, None]).astype(
                 jnp.float32
@@ -432,40 +360,18 @@ class Receiver:
             cph, sph = jnp.cos(ph), jnp.sin(ph)
             dr = rr * cph - ri * sph
             di = rr * sph + ri * cph
-            if use_matched:
-                # depthwise matched filter on the VPU (per-lane taps): the
-                # XLA grouped conv below costs ~2.6-3 ms per call at bench
-                # shapes nearly independent of region size
-                # (ops/matched_pallas.py)
-                outr, outi = matched_filter_pallas(
-                    dr, di, arm_taps[:, ::-1], sps, chunk,
-                    interpret=jax.default_backend() != "tpu",
-                )
-                sym = jax.lax.complex(outr, outi)  # [D, chunk]
-                return amp_scale[:, None] * sym
-            # matched filter + decimate as ONE grouped convolution (window
-            # stacks fused into a dot explode the backend compiler):
-            # out[0, s, g] = sum_k in[0, sps*s + k, g] * kern[k, 0, g]
-            inp = jnp.concatenate([dr, di], axis=0).T[None]  # [1, R, 2D]
-            out = jax.lax.conv_general_dilated(
-                inp,
-                kern,
-                window_strides=(sps,),
-                padding="VALID",
-                dimension_numbers=("NWC", "WIO", "NWC"),
-                feature_group_count=2 * d,
-                preferred_element_type=jnp.float32,
-            )[0]  # [chunk, 2D]
-            sym = jax.lax.complex(out[:, :d], out[:, d:]).T  # [D, chunk]
+            outr, outi = matched_filter(dr, di, taps_rev, sps, chunk)
+            sym = jax.lax.complex(outr, outi)  # [D, chunk]
             return amp_scale[:, None] * sym
 
         if nchunks == 1:
             out = one_chunk(0)  # [D, chunk]
         else:
-            # one traced chunk body (keeps the HLO small — the remote TPU
-            # compiler's time scales with program size)
+            # one traced chunk body keeps the program small
             chunks = jax.lax.map(one_chunk, jnp.arange(nchunks))
-            out = jnp.moveaxis(chunks, 0, 1).reshape(d, nchunks * chunk)
+            out = jnp.moveaxis(chunks, 0, 1).reshape(
+                n_base.shape[0], nchunks * chunk
+            )
         return out[:, :num_syms]  # [D, num_syms]
 
     # ------------------------------------------------------------ header pass
@@ -542,7 +448,7 @@ class Receiver:
         )
         return keep
 
-    # ------------------------------------------------- lane-packed bank decode
+    # ------------------------------------------------------ batched bank decode
 
     @partial(jax.jit, static_argnums=(0, 3))
     def decode_bank(
@@ -551,12 +457,9 @@ class Receiver:
         """Decode ALL channels' detections in one flat batch.
 
         ``x``: ``[C, N]`` complex64; ``det``: per-channel detections with
-        fields ``[C, D]`` (from a vmapped ``acquire``). The per-channel
-        decode passes of round 2 serialized the Pallas kernels into C
-        underfilled instances (32 of 128 lanes each — docs/PERF_R2.md); here
-        the C x D detections run as ONE batch, so the Costas kernel packs
-        C x D lanes per 128-lane tile, the LDPC decoder sees one [C*D, 128]
-        batch and the extraction issues one grouped conv. In-packet
+        fields ``[C, D]`` (from a vmapped ``acquire``). The C x D detections
+        run as ONE batch: one Costas tracking call over C x D rows, one
+        [C*D, 128] LDPC batch and one matched-filter call. In-packet
         suppression stays per-channel (a vmapped tiny scan — detections on
         different channels must not suppress each other).
 
@@ -586,17 +489,15 @@ class Receiver:
         self, x: jax.Array, group: int = 16
     ) -> tuple[Detections, HeaderResult, PayloadResult, jax.Array]:
         """Acquire + decode a whole channel bank ``[C, N]`` (acquisition
-        vmapped per channel — it is block-parallel and keeps full lane
-        utilization per instance; the decode passes run lane-packed).
+        vmapped per channel; the decode passes run as one batch over all
+        channels' detections).
 
         ``group`` enables channel-group pipelining: banks wider than
         ``group`` channels run as a ``lax.map`` over groups, bounding the
-        working set. Measured on v5e (PERF_R3.md): past ~16 channels the
-        monolithic program's >1 GB of [C*D, region] intermediates degrade
-        XLA's scheduling super-linearly (64ch = 296 Msps); 16-channel
-        groups restore it (64ch = 478 Msps) and compile ~50x faster. Set
-        ``group=0`` to force the monolithic program. Results are flattened
-        to the same [C*D]-row layout either way."""
+        working set (the [C*D, region] intermediates of the decode passes)
+        and the size of the compiled program. Set ``group=0`` to force the
+        monolithic program. Results are flattened to the same [C*D]-row
+        layout either way."""
         if not (0 < group < x.shape[0] and x.shape[0] % group == 0):
             det = jax.vmap(lambda xc: self.acquirer.acquire(xc))(x)
             return self.decode_bank(x, det)
@@ -649,13 +550,12 @@ class Receiver:
         # linear interpolation between block centres, clamped at the ends.
         # The weights depend only on the static (S, blk) geometry, so the
         # interpolation is one [D, nb] @ [nb, S] matmul instead of two
-        # [D, S] gathers (gathers measured as the vv pass's main residual
-        # cost, docs/PERF_R3.md round-3b). The two-diagonal matrix is built
-        # ON DEVICE from iota comparisons — as a trace-time literal it is
-        # O(nb*S) (megabytes of HLO the remote compiler chokes on, and
-        # ~4.3 GB at the u16 payload envelope; advisor r3). Above a size
-        # threshold the gather formulation wins on memory and is used
-        # instead.
+        # [D, S] gathers. The two-diagonal matrix is built on device from
+        # iota comparisons (as a trace-time literal it is O(nb*S): ~4.3 GB
+        # at the u16 payload envelope). Above a size threshold the gather
+        # formulation wins on memory and is used instead. The matmul runs
+        # at full f32 precision: a default-precision f32 dot may run in
+        # TF32 on the GPU.
         pos_np = (np.arange(s) - (blk - 1) / 2.0) / blk
         b0_np = np.clip(np.floor(pos_np).astype(np.int32), 0, nb - 1)
         b1_np = np.clip(b0_np + 1, 0, nb - 1)
@@ -668,7 +568,9 @@ class Receiver:
             interp = (rows == b0[None, :]) * (1.0 - frac)[None, :] + (
                 rows == b1[None, :]
             ) * frac[None, :]
-            resid_per_sym = resid @ interp
+            resid_per_sym = jnp.dot(
+                resid, interp, precision=jax.lax.Precision.HIGHEST
+            )
         else:
             resid_per_sym = (
                 resid[:, b0_np] * (1.0 - frac_np)[None, :]
@@ -715,8 +617,7 @@ class Receiver:
         payload = jnp.where(pos < plen[:, None], payload, 0)
         crc = self._crc.compute(payload, jnp.clip(plen, 0, cfg.max_payload_len))
         # received CRC: 4 bytes at positions plen..plen+4, selected by an
-        # iota comparison + sum (batched dynamic slices lower to batched
-        # gathers, unimplemented on this backend)
+        # iota comparison + sum (one fused pass, no per-row slices)
         plen_c = jnp.clip(plen, 0, all_bytes.shape[1] - C.CRC_NUM_BYTES)
         jpos = jnp.arange(all_bytes.shape[1], dtype=jnp.int32)
         crc_rx_bytes = jnp.stack(

@@ -1,4 +1,4 @@
-"""Batched TPU packet transmitter.
+"""Batched packet transmitter.
 
 Re-design of the reference TX composite ``PacketTransmitterPdu``
 (packet_transmitter_pdu.hpp:30-406). Where the reference wires ~15 dataflow
@@ -9,7 +9,7 @@ implementation evaluates the whole chain as one jitted batched program over a
 ragged packet batch:
 
 1. header build + (128,32) LDPC + repetition: tiny GF(2) matmuls
-2. payload CRC-32: one MXU GF(2) matmul (ops/crc.py)
+2. payload CRC-32: one GF(2) matmul (ops/crc.py)
 3. scramble: precomputed keystream XOR
 4. QPSK mapping: gather
 5. burst assembly: static-offset concatenation + per-packet dynamic updates
@@ -99,8 +99,6 @@ class Transmitter:
             rb << np.arange(C.RAMP_DOWN_BITS, dtype=np.uint32)[None, :]
         ).sum(axis=1, dtype=np.uint32)
         # complex constants stay numpy: embedded as literals at trace time
-        # (a jnp complex constant would need a complex device transfer, which
-        # the TPU backend does not support)
         self._sync_syms = np.asarray(C.BPSK_CONSTELLATION)[np.asarray(C.SYNCWORD)]
         self._qpsk = np.asarray(C.QPSK_CONSTELLATION)
 
@@ -186,7 +184,7 @@ class Transmitter:
             total_syms, data_syms, C.SYNCWORD_LEN, axis=1
         )
         # mask data symbols beyond each packet's length, then place ramp
-        # (mask by multiply: complex select is flaky on the TPU backend)
+        # (mask by multiply: real mask times complex symbols)
         pos = jnp.arange(self.max_burst_syms, dtype=jnp.int32)[None, :]
         data_end = C.SYNCWORD_LEN + data_sym_lens[:, None]
         total_syms = total_syms * (pos < data_end).astype(jnp.float32)

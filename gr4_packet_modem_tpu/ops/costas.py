@@ -7,8 +7,9 @@ the wiped-off syncword, QPSK over header and payload, bandwidths
 a *fixed function of symbol position* (syncword 64, header 128, payload rest),
 a whole batch of packets runs as one ``lax.scan`` over symbol index with the
 batch dimension vectorized: every scan step advances all packets by one
-symbol on the VPU. The loop gains come from the same closed-form cubic solve
-as the reference (costas_loop.hpp:67-87).
+symbol. The loop gains come from the same closed-form cubic solve as the
+reference (costas_loop.hpp:67-87). ``costas_run`` is the plain reference;
+ops/costas_gpu.py runs the same recursion as one GPU kernel.
 
 A feed-forward (scan-free) phase estimator is also provided for
 high-throughput paths where loop-exact behavior is not required.
@@ -109,9 +110,8 @@ def costas_run(
     const_ids/k1/k2: ``[S]`` per-symbol schedule (shared across the batch).
     Returns ``(corrected [B, S], phase_end [B], freq_end [B])``.
     """
-    # the scan carries/threads only real arrays (complex values inside scan
-    # bodies crash the TPU backend compiler); z = x * e^{-i phase} is done on
-    # I/Q planes explicitly
+    # the scan carries/threads only real arrays: z = x * e^{-i phase} is done
+    # on I/Q planes explicitly
     sym_re = jnp.moveaxis(symbols.real, -1, 0)  # [S, B]
     sym_im = jnp.moveaxis(symbols.imag, -1, 0)
 

@@ -1,6 +1,6 @@
 """Polyphase FIR kernels.
 
-TPU re-design of the reference's per-item FIR loops:
+Batched re-design of the reference's per-item FIR loops:
 
 - ``interpolating_fir``: the TX pulse shaper (interpolating_fir_filter.hpp):
   instead of a per-sample history buffer, each output polyphase branch is a
@@ -58,13 +58,15 @@ def interpolating_fir(symbols: jax.Array, taps: np.ndarray, interpolation: int) 
         tp[j, : arm.size] = arm
     tpj = jnp.asarray(tp.T)  # [K, I]
     w = _window_stack(symbols, arm_len)  # [..., S, K]
+    # full f32 precision: a default-precision f32 einsum may run in TF32 on
+    # the GPU (about 3 decimal digits)
+    fir = lambda a: jnp.einsum(
+        "...sk,ki->...si", a, tpj, precision=jax.lax.Precision.HIGHEST
+    )
     if jnp.iscomplexobj(symbols):
-        y = jnp.einsum("...sk,ki->...si", w.real, tpj) + 1j * jnp.einsum(
-            "...sk,ki->...si", w.imag, tpj
-        )
-        y = y.astype(symbols.dtype)
+        y = (fir(w.real) + 1j * fir(w.imag)).astype(symbols.dtype)
     else:
-        y = jnp.einsum("...sk,ki->...si", w, tpj)
+        y = fir(w)
     return y.reshape(*symbols.shape[:-1], symbols.shape[-1] * i)
 
 
@@ -121,9 +123,10 @@ def pfb_symbol_filter(
     ]
     w = jnp.stack(cols, axis=-1)  # [S, K]
     arm_taps = arm_taps.astype(jnp.float32)
+    dot = lambda a: jnp.dot(a, arm_taps, precision=jax.lax.Precision.HIGHEST)
     if jnp.iscomplexobj(w):
-        return ((w.real @ arm_taps) + 1j * (w.imag @ arm_taps)).astype(samples.dtype)
-    return w @ arm_taps
+        return (dot(w.real) + 1j * dot(w.imag)).astype(samples.dtype)
+    return dot(w)
 
 
 def pfb_arb_resample(

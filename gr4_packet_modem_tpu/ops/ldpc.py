@@ -8,11 +8,13 @@ in the reference decoder (header_fec_decoder.hpp:31-260). Both are shipped as
 data files under ``gr4_packet_modem_tpu/data`` and verified against each other
 (H @ G = 0) in the tests.
 
-TPU design: encoding is a tiny GF(2) matmul batched over packets. Decoding is
-a batched normalized-min-sum belief-propagation decoder with a flooding
+Design: encoding is a tiny GF(2) matmul batched over packets. Decoding is a
+batched normalized-min-sum belief-propagation decoder with a flooding
 schedule: the 96 checks (degrees 3-5) are stored as a dense padded ``[96, 5]``
-edge table, so one iteration is a gather, a masked two-min sign/magnitude
-reduction and a scatter — all vectorized over the codeword batch. (The
+edge table, so one iteration is an edge gather, a masked two-min
+sign/magnitude reduction and a per-variable sum over a fixed
+variable-to-edge table (a second gather, so the summation order is fixed and
+the result deterministic) — all vectorized over the codeword batch. (The
 reference calls into the Rust ldpc-toolbox serial C FFI decoder instead,
 algorithm "HLAminstari8" with 25 iterations.)
 """
@@ -78,6 +80,8 @@ def encode_header(header_bits: jax.Array) -> jax.Array:
     repetition (header_fec_encoder.hpp:93-115).
     """
     g = jnp.asarray(load_generator().T.astype(np.float32))  # [32, 128]
+    # 0/1 operands with f32 accumulation of at most 32 terms: exact at any
+    # matmul precision (TF32 included), so no precision is forced
     acc = jnp.dot(
         header_bits.astype(jnp.float32), g, preferred_element_type=jnp.float32
     )
@@ -92,35 +96,40 @@ class HeaderLdpcDecoder:
         self,
         num_iterations: int = 25,
         normalization: float = 0.75,
-        use_pallas: bool | None = None,
+        unroll: int | bool = 1,
     ):
         self.num_iterations = int(num_iterations)
         self.normalization = float(normalization)
-        # None = auto: the VMEM-resident Pallas kernel (ops/ldpc_pallas.py,
-        # all iterations in one program) on TPU, the lax.scan elsewhere
-        self.use_pallas = use_pallas
+        # lax.scan unroll of the iteration loop (True = fully unrolled)
+        self.unroll = unroll
         h = load_parity_check()
         m, n = h.shape
         self.n = n
         deg = h.sum(axis=1)
         self.max_deg = int(deg.max())
-        # dense padded edge table: var index per (check, slot), -1 padding
+        # dense padded edge table: var index per (check, slot), padding
+        # slots point at variable 0 and are masked
         vidx = np.full((m, self.max_deg), 0, dtype=np.int32)
         vmask = np.zeros((m, self.max_deg), dtype=bool)
         for c in range(m):
             vs = np.nonzero(h[c])[0]
             vidx[c, : vs.size] = vs
             vmask[c, : vs.size] = True
-        # numpy constants: embedded at trace time (no device residency)
+        # variable -> flat edge indices [N, max var degree]; padding points
+        # at edge E, a zero column appended to the messages
+        e = m * self.max_deg
+        var_edges = [[] for _ in range(n)]
+        for ei in np.nonzero(vmask.reshape(-1))[0]:
+            var_edges[vidx.reshape(-1)[ei]].append(ei)
+        dv = max(len(v) for v in var_edges)
+        vedge = np.full((n, dv), e, dtype=np.int32)
+        for v, es in enumerate(var_edges):
+            vedge[v, : len(es)] = es
+        # numpy constants: embedded at trace time
         self._vidx = vidx
         self._vmask = vmask
+        self._vedge = vedge
         self._h = h.astype(np.float32)
-        if use_pallas is None and jax.default_backend() == "tpu":
-            # pre-warm the capability probe EAGERLY: decode() consults it at
-            # trace time, where a cold probe cannot run (ops/pallas_probe.py)
-            from .ldpc_pallas import ldpc_enabled
-
-            ldpc_enabled()
 
     @partial(jax.jit, static_argnums=0)
     def decode(self, llrs: jax.Array) -> tuple[jax.Array, jax.Array]:
@@ -131,36 +140,18 @@ class HeaderLdpcDecoder:
         Returns ``(info_bits [B, 32] uint8, ok [B] bool)`` where ``ok`` is the
         parity-check success flag (failure -> invalid_header upstream).
         """
-        use_pallas = self.use_pallas
-        if use_pallas is None:
-            # auto: require the compile+validate probe (ops/pallas_probe.py)
-            from .ldpc_pallas import ldpc_enabled
-
-            use_pallas = jax.default_backend() == "tpu" and ldpc_enabled()
-        if use_pallas:
-            from .ldpc_pallas import ldpc_totals_pallas
-
-            total = ldpc_totals_pallas(
-                llrs,
-                self.num_iterations,
-                self.normalization,
-                # forced-on off-TPU (tests) runs the kernel interpreter
-                interpret=jax.default_backend() != "tpu",
-            )
-            return self._finish(total)
-        vidx, vmask = jnp.asarray(self._vidx), jnp.asarray(self._vmask)
+        vmask = jnp.asarray(self._vmask)
         alpha = jnp.float32(self.normalization)
         m, dmax = self._vidx.shape
-        e = m * dmax
-        # edge<->variable selection matrix S[e, v] = (vidx[e] == v), built
-        # from an iota comparison (no literal) — gathers/scatters with
-        # batched operands are unimplemented/pathological on this TPU
-        # backend, so edge gather and variable scatter-add both become
-        # matmuls against S
-        sel = (
-            vidx.reshape(e, 1) == jnp.arange(self.n, dtype=jnp.int32)[None, :]
-        ).astype(jnp.float32)  # [E, N]
-        sel_masked = sel * vmask.reshape(e, 1).astype(jnp.float32)
+        b = llrs.shape[0]
+
+        def var_sums(c2v):
+            # sum of incoming check messages per variable (padding -> 0)
+            contrib = jnp.where(vmask[None], c2v, 0.0).reshape(b, m * dmax)
+            contrib = jnp.concatenate(
+                [contrib, jnp.zeros((b, 1), contrib.dtype)], axis=1
+            )
+            return jnp.sum(contrib[:, self._vedge], axis=-1)  # [B, N]
 
         def check_update(v2c):
             # v2c: [B, M, D] variable-to-check messages (gathered)
@@ -179,41 +170,26 @@ class HeaderLdpcDecoder:
             out_sgn = tot_sgn * sgn  # product of the other signs
             return alpha * out_sgn * jnp.minimum(out_mag, jnp.float32(1e30))
 
-        def body(carry, _):
-            c2v = carry  # [B, M, D] check-to-variable messages
-            # variable totals: sum of incoming c2v per variable + channel LLR
-            contrib = jnp.where(vmask[None], c2v, 0.0)
-            var_sum = jnp.dot(
-                contrib.reshape(contrib.shape[0], e),
-                sel_masked,
-                preferred_element_type=jnp.float32,
-            )  # [B, N] scatter-add as matmul
-            total = llrs + var_sum
-            gathered = jnp.dot(
-                total, sel.T, preferred_element_type=jnp.float32
-            ).reshape(total.shape[0], m, dmax)  # edge gather as matmul
-            v2c = gathered - c2v  # extrinsic
-            c2v_new = check_update(v2c)
-            return c2v_new, None
+        def body(c2v, _):
+            # c2v: [B, M, D] check-to-variable messages
+            total = llrs + var_sums(c2v)
+            v2c = total[:, self._vidx] - c2v  # edge gather, extrinsic
+            return check_update(v2c), None
 
-        b = llrs.shape[0]
         # derive the zeros from llrs so the carry inherits sharding/vma type
         # (required under shard_map's varying-axis checking)
-        c2v0 = jnp.zeros((b, vidx.shape[0], vidx.shape[1]), dtype=llrs.dtype) + (
+        c2v0 = jnp.zeros((b, m, dmax), dtype=llrs.dtype) + (
             0.0 * llrs[:, :1, None]
         )
-        c2v, _ = jax.lax.scan(body, c2v0, None, length=self.num_iterations)
-        contrib = jnp.where(vmask[None], c2v, 0.0)
-        var_sum = jnp.dot(
-            contrib.reshape(contrib.shape[0], e),
-            sel_masked,
-            preferred_element_type=jnp.float32,
+        c2v, _ = jax.lax.scan(
+            body, c2v0, None, length=self.num_iterations, unroll=self.unroll
         )
-        return self._finish(llrs + var_sum)
+        return self._finish(llrs + var_sums(c2v))
 
     def _finish(self, total):
         """Hard decision + parity syndrome check on the final totals."""
         hard = (total < 0).astype(jnp.uint8)  # positive LLR -> bit 0
+        # 0/1 operands, at most 128 terms: exact at any matmul precision
         syndrome = jnp.dot(
             hard.astype(jnp.float32),
             jnp.asarray(self._h).T,

@@ -1,6 +1,6 @@
 """Vectorized bit packing/unpacking and constellation mapping.
 
-TPU equivalents of the reference's per-item loops in PackBits / UnpackBits
+Vectorized equivalents of the reference's per-item loops in PackBits / UnpackBits
 (pack_bits.hpp, unpack_bits.hpp), Mapper (mapper.hpp) and BinarySlicer
 (binary_slicer.hpp): pure reshapes, shifts and gathers over packet batches.
 Only the MSB-first single-bit nibble cases used by the modem chains are
@@ -74,8 +74,7 @@ def bits_to_bytes(bits: jax.Array) -> jax.Array:
 def map_symbols(indices: jax.Array, constellation: jax.Array) -> jax.Array:
     """Constellation LUT mapping (mapper.hpp): index -> complex point.
 
-    Gathers the I/Q planes separately (complex gathers are unimplemented on
-    the TPU backend)."""
+    Gathers the I/Q planes separately (utils.cplx.ctake)."""
     from ..utils.cplx import ctake
 
     return ctake(constellation, indices.astype(jnp.int32), axis=0)

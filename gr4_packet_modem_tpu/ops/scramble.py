@@ -3,7 +3,7 @@
 The scrambler LFSR restarts at every packet (TX: per PDU,
 additive_scrambler.hpp:128-131; RX: on the "header_start" reset tag,
 packet_receiver.hpp:131-135), so the keystream seen by any packet is the same
-fixed bit sequence. On TPU the keystream is precomputed once and applied as a
+fixed bit sequence. The keystream is precomputed once and applied as a
 masked XOR (hard bits) or sign flip (soft LLRs) across the whole packet batch
 — there is no sequential state at all.
 """

@@ -1,19 +1,19 @@
 """Multi-chip receiver bank: channels x time sharding with halo exchange.
 
 The reference is a single-process dataflow program (SURVEY.md §2.4); its
-TPU-native scale-out shards a many-channel receiver bank over a device mesh:
+scale-out here shards a many-channel receiver bank over a device mesh:
 
 - ``ch`` axis (data-parallel analogue): independent RF channels.
 - ``time`` axis (sequence-parallel analogue): each device owns a contiguous
   time shard of every channel it holds; the overlap-save style lookback and
   lookahead that the reference implements with ring-buffer history
   (syncword_detection.hpp:236-238, HistoryBuffer) becomes a **halo exchange**
-  between time-neighbour devices via ``lax.ppermute`` over ICI.
+  between time-neighbour devices via ``lax.ppermute`` collectives (NCCL
+  between GPUs).
 
 Each device then runs the identical single-chip receiver program (acquire ->
 header pass -> filter -> payload pass) on its extended local block. Detection
-semantics match the single-chip path exactly at shard boundaries (round-4
-verdict fix):
+semantics match the single-chip path exactly at shard boundaries:
 
 - candidate selection is restricted to each shard's own fresh window
   *before* the top-k (``fresh_lo``/``fresh_hi`` in ``acquire``), so strong
@@ -122,7 +122,10 @@ def sharded_group_decode(
 
 
 def make_mesh(n_devices: int | None = None, time_shards: int | None = None) -> Mesh:
-    """Build a 2D (ch, time) mesh over the available devices."""
+    """Build a 2D (ch, time) mesh over the first ``n_devices`` devices.
+    The mesh follows the algorithm only: the collectives are a time-axis
+    ppermute/all-gather, and every GPU of a host reaches every other over
+    NVLink, so device order does not matter."""
     devices = np.array(jax.devices())
     n = n_devices or devices.size
     devices = devices[:n]
@@ -139,8 +142,7 @@ class BankConfig:
     block_samples: int = 1 << 17  # per time shard, per channel
     rx: RxConfig = RxConfig()
     # channel-group pipelining within each device's local step: bounds the
-    # [C_loc*D, region] working set (Receiver.bank_step; PERF_R3.md —
-    # monolithic >16-channel programs degrade super-linearly on v5e)
+    # [C_loc*D, region] working set (Receiver.bank_step)
     channel_group: int = 16
 
 
@@ -226,7 +228,7 @@ class ReceiverBank:
             mesh=mesh,
             in_specs=(in_spec,),
             out_specs=P("ch", "time"),
-            # the receiver's Pallas kernels return ShapeDtypeStruct outputs
+            # the receiver's Pallas kernel returns ShapeDtypeStruct outputs
             # without vma annotations; every output of local_step is fully
             # local to its shard, so the varying-axis check adds nothing
             check_vma=False,

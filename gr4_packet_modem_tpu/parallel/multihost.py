@@ -1,14 +1,14 @@
 """Multi-host bring-up and scaling measurement helpers.
 
-The reference is single-process (SURVEY §2.4); the TPU-native scale-out path
-runs the receiver bank over all chips of a pod slice, multi-host included:
+The reference is single-process (SURVEY §2.4); the scale-out path runs the
+receiver bank over all devices of one or several hosts:
 
 - ``initialize()``: `jax.distributed` bring-up (coordinator from env vars —
   standard JAX multi-host convention). On a single host it is a no-op.
 - ``measure_scaling()``: per-chip throughput of the sharded receiver bank at
   increasing device counts; scaling efficiency = rate_per_chip(N) /
   rate_per_chip(1). The channel axis is embarrassingly parallel and the time
-  axis exchanges only fixed-size halos over ICI, so efficiency should stay
+  axis exchanges only fixed-size halos, so efficiency should stay
   near 1 as long as block sizes keep the halo fraction small
   (halo = pad_tail ~ max packet extent; choose block >> halo).
 """
@@ -66,7 +66,7 @@ def measure_scaling(
         if n > all_devices or n in seen:
             # a repeated device count measures nothing: two 1-device runs
             # reporting "efficiency of itself" is not scaling evidence
-            # (VERDICT r2 weak #8) — skip instead of emitting a fake point
+            # — skip instead of emitting a fake point
             continue
         seen.add(n)
         mesh = make_mesh(n)

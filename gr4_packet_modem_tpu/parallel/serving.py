@@ -4,19 +4,19 @@ The reference's serving story is its free-running real-time apps — one
 process feeding samples to one receiver graph (apps/packet_transceiver.cpp:
 99-131, tun_source.hpp:69-78). ``StreamingBank`` scales that to a channel
 bank on ONE chip; ``StreamingShardedBank`` composes it with the sharded
-``ReceiverBank`` execution model (round-4 verdict item 1): the host feeds
+``ReceiverBank`` execution model: the host feeds
 ``[C, block]`` sample blocks onto a ``(ch, time)`` mesh and every
 StreamingBank guarantee carries over — exactly-once decode across block
 boundaries, per-channel in-packet suppression state carried across blocks
 AND shards, the int8 wire, the compacted d2h, and the parity/overflow gates.
 
-Design (TPU-first, not a port):
+Design:
 
 - **h2d is mesh-sharded**: each device receives only its ``[2, C_loc, bs]``
   slice of the wire block (``device_put`` with a ``(ch, time)`` sharding);
   the full per-channel block is reassembled ON the mesh by an ``all_gather``
-  along the time axis — ICI bandwidth is orders of magnitude above the host
-  link, so the gather is effectively free while the host wire stays 1/N.
+  along the time axis — the device interconnect (NVLink between GPUs) is
+  far faster than the host link, so the host wire stays 1/N.
 - **The sliding window is carried, not re-fed**: only the last
   ``front_pad + pad_tail`` samples per channel (the overlap the next block's
   fresh region needs) persist on device between steps, exactly like the
@@ -109,8 +109,7 @@ class StreamingShardedBank(StreamingBank):
             raise ValueError("block too small for the time mesh")
         c = self.channels
         # carried tail: the last fp+pt samples of the window, sharded over
-        # ch and replicated over time (built ON device — complex64 h2d
-        # transfers are unimplemented on this backend)
+        # ch and replicated over time (built on device, no h2d transfer)
         self._buf = jax.jit(
             lambda: jax.lax.complex(
                 jnp.zeros((c, fp + pt), jnp.float32),
@@ -140,10 +139,10 @@ class StreamingShardedBank(StreamingBank):
             # [C_loc, fp+pt], [2, C_loc, bs], [C_loc]
             planes_full = jax.lax.all_gather(
                 planes_loc, "time", axis=2, tiled=True
-            )  # [2, C_loc, block] — reassemble the block over ICI
+            )  # [2, C_loc, block] — reassemble the block on the mesh
             chunk = planes_to_complex(
                 planes_full, packed_int4=self.transfer_dtype == "int4"
-            )  # [C_loc, block] — int4 also halves the ICI gather bytes
+            )  # [C_loc, block] — int4 also halves the gather bytes
             window = jnp.concatenate([tail_loc, chunk], axis=1)
             tail_next = window[:, block:]  # last fp+pt (identical per shard)
             idx_t = jax.lax.axis_index("time")

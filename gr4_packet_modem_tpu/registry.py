@@ -1,4 +1,4 @@
-"""Block inventory registry: reference-block -> TPU-framework equivalent.
+"""Block inventory registry: reference-block -> framework equivalent.
 
 The reference exposes its ~70 blocks through a string-keyed BlockRegistry to
 Python (python/bindings/python_bindings.cpp:250-320, SURVEY §2.5). In this

@@ -4,7 +4,7 @@ The modem uses two shift-register sequences:
 
 - the CCSDS additive scrambler (additive_scrambler.hpp:77-94): a Fibonacci
   LFSR parameterized by ``mask``/``seed``/``length`` (GR3 convention). The
-  scrambler restarts at every packet (header start), so on TPU the whole
+  scrambler restarts at every packet (header start), so the whole
   keystream is precomputed once here and applied as a vectorized XOR /
   sign-flip.
 

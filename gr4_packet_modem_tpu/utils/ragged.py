@@ -1,7 +1,7 @@
-"""Ragged packet batches: the TPU equivalent of the reference's ``Pdu<T>``.
+"""Ragged packet batches: the batched equivalent of the reference's ``Pdu<T>``.
 
 The reference moves whole packets between blocks as ``Pdu<T> = {data, tags}``
-items (pdu.hpp:14-19). On TPU, a batch of packets is a dense padded array
+items (pdu.hpp:14-19). Here a batch of packets is a dense padded array
 ``[B, max_len]`` plus a length vector ``[B]`` (and any per-packet metadata as
 additional ``[B]``-shaped fields). All per-packet DSP is vectorized over the
 batch dimension; ragged concatenation into a contiguous stream is a parallel
@@ -99,7 +99,7 @@ def ragged_concat(
     vals = cgather(data, row, jnp.clip(off, 0, data.shape[1] - 1))
     in_range = pos < total
     if jnp.iscomplexobj(data):
-        # mask by multiply: complex select is flaky on the TPU backend
+        # mask by multiply (real mask times complex values)
         out = vals * in_range.astype(jnp.float32)
         if fill != 0:
             out = out + jnp.asarray(fill, data.dtype) * (

@@ -1,4 +1,4 @@
-// Host IO native library for the TPU packet modem.
+// Host IO native library for the packet modem.
 //
 // C++ equivalents of the reference's OS-boundary blocks (kept native for the
 // same reasons the reference implements them in C++):
@@ -7,7 +7,7 @@
 //    tun_source.hpp, tun_sink.hpp)
 //  - select()-based bounded-latency reads (tun_source.hpp BlockingIO path)
 //  - a lock-free SPSC byte ring buffer used by the streaming runtime to
-//    decouple the OS ingest thread from the device feeder (the TPU-side
+//    decouple the OS ingest thread from the device feeder (the device-side
 //    replacement for the GR4 ring-buffer stream edges).
 //
 // Built as a plain shared library; Python binds via ctypes (io/tun.py).

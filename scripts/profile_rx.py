@@ -12,7 +12,7 @@ Options (env):
   PROF_CARRIER   vv|costas for the full-chain line (default: both)
   PROF_TRACE     directory -> dump a jax.profiler trace of one full step
                  (view with tensorboard or xprof)
-  PM_PLATFORM    backend override (cpu for off-TPU smoke runs)
+  PM_PLATFORM    backend override (cpu for smoke runs on the CPU)
 """
 
 import json

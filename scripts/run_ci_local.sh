@@ -1,7 +1,6 @@
 #!/usr/bin/env bash
-# Run the CI pipeline end-to-end locally (VERDICT r2 next-step 4: every CI
-# command must be executable from a clean checkout so a broken job can't
-# ship again). Mirrors .github/workflows/ci.yml job-for-job; steps whose
+# Run the CI pipeline end-to-end locally: every CI command must be executable
+# from a clean checkout. Mirrors .github/workflows/ci.yml job-for-job; steps whose
 # tooling is absent locally (ruff, build) are skipped with a notice rather
 # than silently passed.
 set -euo pipefail

@@ -1,7 +1,7 @@
 """Sequential per-packet reference implementations (numpy, host).
 
 These mirror the reference modem's algorithms step by step (one packet at a
-time, explicit loops) and serve as the oracle for the batched TPU kernels —
+time, explicit loops) and serve as the oracle for the batched kernels —
 the same role VectorSource/VectorSink golden vectors play in the reference QA
 suite (SURVEY.md §4). Deliberately simple and slow.
 """

@@ -132,7 +132,7 @@ class TestDetection:
 def test_fft_size_equivalence():
     """Detections are invariant to the overlap-save FFT size (the frame
     partitioning is an implementation detail of the correlation; fft 2048 is
-    the reference's choice, larger sizes are a TPU throughput knob)."""
+    the reference's choice, larger sizes are a throughput knob)."""
     x = _signal(cfo=0.003, offset=4000, total=1 << 15, noise=0.03)
     base = SyncwordAcquirer(
         AcquisitionConfig(freq_bins=4, max_detections=4, fft_size=2048)
@@ -162,7 +162,8 @@ def test_fft_size_equivalence():
 
 
 def test_conv_bf16_equivalence():
-    """bf16 MXU correlation: same detections, estimates within ~1%."""
+    """bf16 convolution correlation: same detections, estimates within
+    ~1%."""
     x = _signal(cfo=0.003, offset=4000, total=1 << 15, noise=0.03)
     det32 = SyncwordAcquirer(
         AcquisitionConfig(freq_bins=4, max_detections=4, backend="conv")
@@ -276,3 +277,22 @@ def test_chunked_peak_detect_overflow_counts_all_passing():
            if p > 0}
     assert got == {500, 200, 400}  # top-3 by power
     assert bool(overflow)
+
+
+@pytest.mark.parametrize(
+    "backend,resolved",
+    [("auto", "fft"), ("fft", "fft"), ("conv", "conv"),
+     ("conv_bf16", "conv_bf16")],
+)
+def test_backend_resolution(backend, resolved):
+    """``auto`` means the overlap-save ``fft`` correlator on every
+    platform."""
+    cfg = AcquisitionConfig(backend=backend)
+    assert cfg.resolved_backend() == resolved
+    SyncwordAcquirer(cfg)  # accepted
+
+
+@pytest.mark.parametrize("backend", ["fused", "fused_bf16", "other"])
+def test_removed_backends_rejected(backend):
+    with pytest.raises(ValueError, match="unknown acquisition backend"):
+        SyncwordAcquirer(AcquisitionConfig(backend=backend))

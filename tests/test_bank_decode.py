@@ -119,7 +119,7 @@ def test_bank_decodes_all_packets(bank_signal):
 
 def test_bank_group_pipelining_matches_monolithic(bank_signal):
     """Channel-group pipelining (bank_step group=N, a lax.map over channel
-    groups bounding the working set — the 64-channel fix, PERF_R3.md) must
+    groups bounding the working set) must
     produce the identical flattened [C*D] result rows as the monolithic
     program."""
     rx, x, payloads = bank_signal

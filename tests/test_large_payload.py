@@ -1,9 +1,8 @@
-"""Large-payload envelope (VERDICT r1 missing #5): the reference accepts the
+"""Large-payload envelope: the reference accepts the
 full u16 length range (packet_ingress.hpp:104, <= 65535 B). This exercises a
 16 KiB payload end to end through TX -> channel -> RX, in both payload
 carrier modes, and a 64 KiB TX modulation round-trip through the host
-reference oracle. (Compile-time/memory vs max_payload_len on real TPU
-hardware is characterized in docs/PERF_R2.md.)"""
+reference oracle."""
 
 import jax
 import numpy as np

@@ -129,10 +129,11 @@ def test_loopback_burst_vv_carrier(cfo):
         np.testing.assert_array_equal(g, e)
 
 
-def test_loopback_burst_fused_acquisition():
-    """Byte-exact decode with the fused Pallas acquisition backend
-    (ops/acquire_pallas.py) — end-to-end equivalence beyond the
-    detection-level tests in test_acquire_fused.py."""
+@pytest.mark.parametrize("backend", ["fft", "conv"])
+def test_loopback_burst_acquisition_backend(backend):
+    """Byte-exact decode with each correlation backend of the acquisition
+    (ops/acquire.py) — end-to-end equivalence beyond the detection-level
+    tests in test_acquire.py."""
     payloads = PAYLOADS[:6]
     stream = _tx_burst(payloads, 1536)
     x = awgn(jax.random.PRNGKey(5), rotate(stream, 0.006), NOISE_AMPLITUDE)
@@ -140,7 +141,7 @@ def test_loopback_burst_fused_acquisition():
         RxConfig(
             max_payload_len=1536,
             max_detections=16,
-            acquisition_backend="fused",
+            acquisition_backend=backend,
         )
     )
     res = rx.receive(np.asarray(x))
@@ -154,8 +155,9 @@ def test_loopback_burst_fused_acquisition():
 
 
 def test_loopback_forced_pallas_kernels():
-    """use_pallas=True exercises every Pallas kernel dispatch (Costas, LDPC,
-    region fetch) end to end via the kernel interpreter on CPU."""
+    """use_pallas=True with pallas_interpret=True runs the Costas kernel
+    (ops/costas_gpu.py) in the Pallas interpreter for both the header and
+    the payload pass, end to end on the CPU."""
     payloads = [(np.arange(n) % 256).astype(np.uint8) for n in (40, 120)]
     tx = Transmitter(TxConfig(max_payload_len=128))
     batch = PacketBatch.from_list(payloads, max_len=128)
@@ -163,7 +165,10 @@ def test_loopback_forced_pallas_kernels():
     stream, _ = ragged_concat(samples, slens, int(np.sum(np.asarray(slens))))
     x = awgn(jax.random.PRNGKey(1), rotate(stream, 0.004), NOISE_AMPLITUDE)
     rx = Receiver(
-        RxConfig(max_payload_len=128, max_detections=4, use_pallas=True)
+        RxConfig(
+            max_payload_len=128, max_detections=4, use_pallas=True,
+            pallas_interpret=True,
+        )
     )
     res = rx.receive(np.asarray(x))
     acc = np.asarray(res.accepted)

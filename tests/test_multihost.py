@@ -1,4 +1,4 @@
-"""2-process jax.distributed receiver-bank test (VERDICT r1 missing #2).
+"""2-process jax.distributed receiver-bank test.
 
 Proves the DCN code path: ``multihost.initialize()`` brings up
 ``jax.distributed`` across two real OS processes (CPU backend, 2 virtual

@@ -94,13 +94,13 @@ class TestPerSnr:
         assert 0.17 <= mean_per <= 0.38, f"PER@11dB = {mean_per}"
 
     def test_vv_costas_per_parity(self):
-        """The scan-free V&V payload tracker (the TPU benchmark default)
+        """The scan-free V&V payload tracker (the benchmark default)
         must match the loop-exact Costas payload tracker within binomial
         noise across the waterfall: at the 20 dB operating point both are
         error-free; at the 11 dB midpoint the PER difference over 10 seeds x
         24 packets per carrier must be < ~2.2 sigma of the difference
         (sigma_diff = sqrt(2) * 0.029 ~ 0.041; measured |diff| = 0.013).
-        Gates making vv the default (VERDICT r1 next-step 1b)."""
+        Gates making vv the default."""
         assert _per_at(20.0, carrier="vv")[0] == 0.0
         per_c = [_per_at(11.0, seed=s, carrier="costas")[0] for s in range(10)]
         per_v = [_per_at(11.0, seed=s, carrier="vv")[0] for s in range(10)]

@@ -71,7 +71,7 @@ class TestStreaming:
     def test_flush_on_block_boundary(self):
         """Regression: input ending exactly on a block boundary must not
         lose the tail packets still inside the lookahead pipeline
-        (runtime/streaming.py flush; VERDICT r1 weak #3)."""
+        (runtime/streaming.py flush)."""
         tx = StreamingTransmitter(Transmitter(TxConfig(max_payload_len=256)))
         payloads = [
             (np.arange(n) % 256).astype(np.uint8) for n in [64, 128, 200]
@@ -95,7 +95,7 @@ class TestStreaming:
     def test_detection_overflow_flagged(self):
         """Regression: more packets per block than max_detections must
         raise the acquisition overflow flag instead of silently dropping
-        (ops/acquire.py overflow; VERDICT r1 weak #4)."""
+        (ops/acquire.py overflow)."""
         import warnings
 
         tx = StreamingTransmitter(Transmitter(TxConfig(max_payload_len=16)))
@@ -123,7 +123,7 @@ class TestStreaming:
 
     def test_fresh_window_protects_detection_cap(self):
         """Acquisition candidates are restricted to the fresh block BEFORE
-        top-k (VERDICT r2 next-step 1): the streaming buffer holds
+        top-k: the streaming buffer holds
         front_pad + block + pad_tail samples (~several blocks of packets at
         this size), but only the fresh block's packets may compete for
         max_detections slots — a cap sized for one block must decode a

@@ -142,7 +142,7 @@ def test_sharded_bank_group_pipelining_matches_monolithic():
 @pytest.mark.parametrize("xfer", ["int8", "int4"])
 def test_sharded_bank_quantized_wire(xfer):
     """Reduced-precision h2d wires (int8, packed int4) stay decode-lossless
-    through the mesh-sharded upload + ICI reassembly (the bench parity
+    through the mesh-sharded upload + on-mesh reassembly (the bench parity
     gate)."""
     import jax.numpy as jnp
 

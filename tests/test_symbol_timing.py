@@ -7,8 +7,7 @@ phase / shift the base sample, (b) use ``time_est + 1`` for the arm, and
 (c) adjust the syncword phase by ``-syncword_freq``. A dropped or
 sign-flipped adjustment is a ~half-sample timing error: the matched filter
 then samples near symbol transitions and the syncword EVM explodes — the
-assertions here are tight enough that an injected off-by-one fails them
-(VERDICT r3 next-step 8).
+assertions here are tight enough that an injected off-by-one fails them.
 
 The stimulus is a clean burst delayed by an exact *fractional* number of
 samples (band-limited FFT phase-ramp delay — the RRC at 4 sps occupies

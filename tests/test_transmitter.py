@@ -1,4 +1,4 @@
-"""TX chain tests: batched TPU transmitter vs the sequential host reference."""
+"""TX chain tests: batched transmitter vs the sequential host reference."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -1,4 +1,4 @@
-"""End-to-end ZMQ monitoring-tap test (VERDICT r1 missing #3).
+"""End-to-end ZMQ monitoring-tap test.
 
 Mirrors the reference's live-constellation path: the receiver publishes
 post-Costas header/payload symbols per accepted packet on ZMQ PUB sockets
